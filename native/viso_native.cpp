@@ -1,6 +1,6 @@
 // viso_native: host-side ingestion runtime for viso_tpu.
 //
-// TPU-native replacement for the reference's synchronous loader
+// Native replacement for the reference's synchronous loader
 // (/root/reference/include/frame_sequence.h:25-38 — cv::imread on the
 // render thread, one frame per tick) and its never-instantiated
 // RingBuffer (include/ring_buffer.h:10-42). Provides:

@@ -105,9 +105,9 @@ def test_patch_grid_with_grad_matches_flattened(rng):
 
 
 def test_rectangular_windows_match_square(rng):
-    """Aligned over-copied (R, C) tiles (the Pallas DMA extractor's
-    output shape, geometry/extract_pallas.py) must sample identically to
-    the exact square windows wherever both cover the patch."""
+    """Rectangular (R, C) windows at arbitrary origins (the shape of the
+    stereo matcher's scanline strips) must sample identically to the
+    exact square windows wherever both cover the patch."""
     H, W = 96, 160
     img = jnp.asarray(rng.uniform(0, 255, (H, W)).astype(np.float32))
     n = 64
@@ -117,8 +117,8 @@ def test_rectangular_windows_match_square(rng):
     )
     win = 16
     sq_win, sq_base = sampling.extract_windows(img, centers, win)
-    # Emulate the DMA tile: origin rounded down to (8, 32) alignment,
-    # extent grown to keep coverage.
+    # Rectangular window: origin rounded down to (8, 32), extent grown
+    # to keep coverage.
     R, C = 24, 64
     bx = jnp.clip(sq_base[:, 0] & ~31, 0, W - C)
     by = jnp.clip(sq_base[:, 1] & ~7, 0, H - R)

@@ -1,24 +1,17 @@
-"""Weak-scaling harness for distributed BA (north-star: >=70% frames/s
-scaling efficiency at 2 hosts).
+"""Distributed-BA harness on a virtual CPU mesh.
 
-Real multi-host hardware is not available in this environment, so this
-records the two quantities that determine that target and can be
-measured/derived without it:
-
-  1. Measured LM iterations/s vs mesh size on a virtual device mesh
-     (XLA_FLAGS=--xla_force_host_platform_device_count=N, CPU). Virtual
-     CPU devices share host cores, so absolute scaling here is a LOWER
-     bound sanity check (the collective/partitioning overhead is real,
-     the per-device compute speedup is not).
-  2. The analytic communication volume: bytes all-reduced per LM
-     iteration (dist_ba.psum_bytes_per_iter) vs the per-device compute
-     volume — the ratio that bounds scaling efficiency on real ICI.
+Measures LM iterations/s vs mesh size on virtual CPU devices
+(XLA_FLAGS=--xla_force_host_platform_device_count=N). Virtual devices
+share host cores, so this checks the sharded path's correctness and
+overhead, not real scaling; the multi-card evidence is
+`python chip_smoke.py --four-cards`. Each record also carries the bytes
+all-reduced per LM iteration (dist_ba.psum_bytes_per_iter).
 
 Usage:
   python tools/bench_dist_ba.py [--cams 16] [--landmarks 65536]
         [--devices 1 2 4 8] [--iters 10]
 
-Prints one JSON line per mesh size plus a derived ICI-bound estimate.
+Prints one JSON line per mesh size.
 """
 
 from __future__ import annotations
@@ -106,9 +99,7 @@ def main():
             # baseline is itself multithreaded over all of them, so on
             # an m-core host the measured mesh-k "efficiency" is
             # structurally capped near m/(k*min(m,k)) — it validates the
-            # sharded path's correctness and overhead, not real scaling
-            # (that is what the measured two_host_efficiency_bound is
-            # for).
+            # sharded path's correctness and overhead, not real scaling.
             "host_cores": os.cpu_count(),
         }
         if results:
@@ -118,64 +109,6 @@ def main():
             rec["efficiency"] = round(rec["speedup_vs_1dev"] / n, 3)
         results.append(rec)
         print(json.dumps(rec))
-
-    # MEASUREMENT-grounded 2-host efficiency bound (VERDICT r4 #4b).
-    # tools/calib_ba_iter.py (run on the real TPU in a subprocess —
-    # this process forced CPU for the virtual mesh) fits the measured
-    # per-iteration time as T(L) = a*L + b: a*L is the landmark-sharded
-    # work that splits across hosts, b the replicated tail (reduced
-    # camera solve etc. — the Amdahl term). Only the interconnect terms
-    # remain modeled: ~40 KB/iter of reduced-system traffic at the v5e
-    # ICI spec plus per-collective latency for the TWO psums each
-    # iteration launches (down from four in r1-r4).
-    import subprocess
-
-    calib = None
-    try:
-        cp = subprocess.run(
-            [sys.executable, "tools/calib_ba_iter.py", "--cams", str(C)],
-            capture_output=True, text=True, timeout=560,
-        )
-        calib = json.loads(cp.stdout.strip().splitlines()[-1])
-    except Exception as e:  # noqa: BLE001 — calib is best-effort
-        print(json.dumps({"calib_error": str(e)}), file=sys.stderr)
-    bytes_iter = dist_ba.psum_bytes_per_iter(C)
-    comm_s = bytes_iter / 1e11 + dist_ba.PSUMS_PER_ITER * 1.5e-6
-    if calib is not None:
-        a = calib["a_s_per_lm_iter"]
-        b = calib["b_s_per_iter"]
-        t1 = a * L + b
-        t2 = a * L / 2 + b + comm_s
-        bound = t1 / (2 * t2)
-        rec = {
-            "derived": "two_host_efficiency_bound",
-            "basis": f"measured a,b on {calib['backend']} "
-            f"(tools/calib_ba_iter.py): T_iter(L) = a*L + b",
-            "a_s_per_lm_iter": a,
-            "b_s_per_iter": b,
-            "t_iter_1dev_s": t1,
-            "t_iter_2host_s": t2,
-            "ici_s_per_iter": comm_s,
-            "psums_per_iter": dist_ba.PSUMS_PER_ITER,
-            "psum_bytes_per_iter": bytes_iter,
-            "efficiency_bound": round(bound, 4),
-            "note": "sharded work is measured at >99% of the iteration "
-            "at this landmark count; reduced-system traffic is O(C^2), "
-            "independent of landmark count",
-        }
-    else:
-        # Fallback: the r4 analytic model (assumed constants).
-        n_obs = int(mask.sum())
-        compute_s = n_obs / 2 * 500.0 / 1e13
-        bound = compute_s / (compute_s + comm_s)
-        rec = {
-            "derived": "two_host_efficiency_bound",
-            "basis": "ANALYTIC FALLBACK (assumed constants; calib failed)",
-            "compute_s_per_iter": compute_s,
-            "ici_s_per_iter": comm_s,
-            "efficiency_bound": round(bound, 4),
-        }
-    print(json.dumps(rec))
 
 
 if __name__ == "__main__":

@@ -22,14 +22,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    import tempfile
-
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        tempfile.gettempdir(), f"viso_jax_cache_{os.getuid()}"
-    )
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 
 def rot_angle(R):
     return float(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))
@@ -43,6 +35,9 @@ def rel(Ra, ta, Rb, tb):
 
 
 def main():
+    from viso_tpu.utils import compile_cache
+
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=260)
     ap.add_argument("--no-ba", action="store_true")

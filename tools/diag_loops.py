@@ -16,16 +16,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
-    import tempfile
-
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-        tempfile.gettempdir(), f"viso_jax_cache_{os.getuid()}"
-    )
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 
 def main():
+    from viso_tpu.utils import compile_cache
+
+    compile_cache.enable()
     import jax
 
     import bench

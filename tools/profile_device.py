@@ -1,19 +1,17 @@
 """Device-time profile + MFU estimate for the per-frame tracking kernel.
 
 Thin CLI wrapper around bench.device_metrics: it builds the EXACT
-headline-bench engine (same config -> the persistent compile cache hits
-and the tool finishes in seconds instead of recompiling for minutes;
-VERDICT r2 weak #4) and reports XLA's cost analysis of the compiled
-track executable plus a pipelined burst's sustained on-device s/frame.
+headline-bench engine (same config -> the persistent compile cache hits)
+and reports XLA's cost analysis of the compiled track executable plus a
+pipelined burst's sustained on-device s/frame.
 
-  * MFU = flops / (s_frame * f32 peak). Sparse VO front-ends are
-    DMA/gather-bound, so single-digit MFU is expected and honest — the
-    number exists so "fast" is measured against silicon, not a tunnel.
+  * MFU = flops / (s_frame * f32 peak, bench.PEAKS). Sparse VO
+    front-ends are gather-bound, so single-digit MFU is expected.
   * HBM utilization is the meaningful ceiling for this workload.
 
-The same numbers are recorded by every `python bench.py` run (the
-driver's BENCH_r*.json), so this tool is for interactive profiling —
-optionally with a full jax.profiler trace via --trace-dir.
+The same numbers are recorded by every `python bench.py` run, so this
+tool is for interactive profiling — optionally with a full
+jax.profiler trace via --trace-dir. Needs a GPU.
 
 Usage: python tools/profile_device.py [--frames 64] [--trace-dir DIR]
 """
@@ -35,28 +33,18 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import numpy as np
 
     import bench
-    from viso_tpu.data import synthetic
-    from viso_tpu.slam.engine import StereoVO, VOConfig
+    from viso_tpu.slam.engine import StereoVO
+    from viso_tpu.utils import compile_cache
+    from viso_tpu.utils import device as device_mod
 
-    H, W = 376, 1240
+    compile_cache.enable()
+    peak = bench.peaks(device_mod.require_gpu(jax.devices()[0]).device_kind)
+
     # EXACT bench_headline config (shared compile cache entries).
-    cfg = VOConfig(
-        height=H, width=W, baseline=0.537, num_features=512,
-        max_landmarks=2048, detect_grid=(6, 12), fast_threshold=20.0,
-        max_disparity=128, stats_max_lag=8, kf_max_gap=5,
-        **bench.KITTI_FULL,
-    )
-    intr = cfg.intrinsics()
-    rng = np.random.default_rng(42)
-    scene = synthetic.corridor_scene(rng, tex_size=1024, far_z=60.0)
-    Rs, ts = synthetic.forward_trajectory(12, step=0.8, yaw_rate=0.003)
-    frames = [
-        synthetic.make_stereo_pair(scene, intr, R, t, H, W, baseline=cfg.baseline)[:2]
-        for R, t in zip(Rs, ts)
-    ]
+    cfg = bench.headline_config()
+    frames, _, _ = bench.headline_sequence(cfg, 12)
     vo = StereoVO(cfg)
     for il, ir in frames:
         vo.process(il, ir)
@@ -65,14 +53,11 @@ def main():
 
     if args.trace_dir:
         with jax.profiler.trace(args.trace_dir):
-            out = bench.device_metrics(vo, staged, n=args.frames)
+            out = bench.device_metrics(vo, staged, peak, n=args.frames)
     else:
-        out = bench.device_metrics(vo, staged, n=args.frames)
+        out = bench.device_metrics(vo, staged, peak, n=args.frames)
     vo.close()
-    out["note"] = (
-        "sparse VO is DMA/gather-bound; MFU is expected to be low — "
-        "HBM utilization is the meaningful ceiling"
-    )
+    out["device"] = device_mod.describe(jax.devices())
     print(json.dumps(out))
 
 

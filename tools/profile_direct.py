@@ -9,8 +9,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/viso_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +25,9 @@ def timeit(fn, n=20):
 
 
 def main():
+    from viso_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from viso_tpu.geometry import camera as cam_mod
     from viso_tpu.geometry import sampling
     from viso_tpu.ops import direct, pyramid

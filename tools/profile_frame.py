@@ -12,8 +12,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/viso_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +28,9 @@ def timeit(fn, n=10):
 
 
 def main():
+    from viso_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from viso_tpu.data import synthetic
     from viso_tpu.slam.engine import StereoVO, VOConfig
 

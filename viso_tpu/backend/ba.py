@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment: Levenberg-Marquardt + Schur complement.
 
-TPU-native realization of the reference's *intended* backend: the dead
+Realization of the reference's *intended* backend: the dead
 g2o skeleton at `/root/reference/include/bundle_adjuster.h` specifies
 ``BlockSolver<6,3>`` with Levenberg-Marquardt (bundle_adjuster.h:108-119)
 and marginalized landmarks, i.e. a Schur complement on the camera-point
@@ -9,12 +9,12 @@ with reprojection residuals (and a photometric variant in
 `ba_photometric.py` mirroring the 16-dim patch edge of
 bundle_adjuster.h:58-106).
 
-TPU-first design decisions:
+Design decisions:
   * **Dense (camera x landmark) observation grid.** A sliding window has
     C <= ~16 cameras, so observations live in (C, L) masked arrays — no
     gathers, no segment sums; every per-observation quantity is a plain
     broadcasted array op, and all block contractions (U, V, W, the Schur
-    reduction) are einsums that land on the MXU.
+    reduction) are einsums.
   * **Closed-form batched 3x3 landmark inverses** for the marginalization.
   * **Branchless LM**: fixed iteration count, accept/reject by masked
     select, damping updated multiplicatively — no data-dependent control
@@ -79,21 +79,18 @@ class BAParams(NamedTuple):
     # per-iteration kernels are tiny; see README "BA ceiling").
     unroll: int = 1
     # Reduced-camera-system solve: "chol" (Cholesky — S is SPD after
-    # damping + gauge pinning; no pivoting, one less inner while loop,
-    # measured 790 vs 702 LM iters/s on the 50kf/4096lm bench) or "lu".
+    # damping + gauge pinning; no pivoting, one less inner while loop)
+    # or "lu".
     solver: str = "chol"
 
 
 # ---------------------------------------------------------------------------
 # Landmark-minor ("L-last") internal layout.
 #
-# TPU arrays tile their two MINOR dims to (8, 128). Block arrays shaped
-# (C, L, 2, 6) therefore pad (2, 6) -> (8, 128): a 64x physical blow-up
-# that turns the normal-equation build into gigabytes of HBM traffic
-# (measured: 11.5 ms per LM iteration at C=50, L=4096). All per-
-# observation tensors below keep L in the LANE dimension and the tiny
-# block indices in leading/sublane positions — (C, 2, 6, L) pads only
-# 6 -> 8. Same math, ~10x less memory traffic.
+# All per-observation tensors keep L as the minor (contiguous) dimension
+# and the tiny block indices (2, 6, 3) in leading positions —
+# (C, 2, 6, L) rather than (C, L, 2, 6) — so every elementwise pass and
+# every reduction over landmarks runs over long contiguous rows.
 # ---------------------------------------------------------------------------
 
 
@@ -235,7 +232,7 @@ def _lm_iteration(
 
     With `axis_name` (landmark-sharded distributed mode): ONE fused
     `psum` per iteration carries the camera blocks (U, g_c), the Schur
-    cross terms, and the cost scalar over ICI; everything
+    cross terms, and the cost scalar across devices; everything
     landmark-indexed (V, V^-1, W, Y, g_p, delta_p) stays shard-local —
     exactly the layout SURVEY.md §2 prescribes. The reduced 6Cx6C
     camera solve is replicated on every device.
@@ -260,7 +257,7 @@ def _lm_iteration(
     # The point-block terms are kept as per-column SLABS — W_k = W[:, :, k]
     # of shape (C, 6, L) — because a materialized (C, 6, 3, L) array pads
     # its sublane dim 3 -> 8 (2.7x traffic) and forces XLA to lower the
-    # Schur contraction as loops instead of three big MXU matmuls.
+    # Schur contraction as loops instead of three big matmuls.
     Jc_w = Jc * w[:, None, None]
     U = jnp.einsum("cail,cajl->cij", Jc_w, Jc)
     Jp_w = Jp * w[:, None, None]
@@ -320,7 +317,7 @@ def schur_solve(
 
     # Marginalize landmarks (Schur): batched closed-form 3x3 inverses on
     # (3, 3, L) planes; Y = W V^-1 built slab-by-slab, and the Schur
-    # cross term -Y W^T reduced as three (6C, L) x (L, 6C) MXU matmuls.
+    # cross term -Y W^T reduced as three (6C, L) x (L, 6C) matmuls.
     V_inv = _inv3x3_planes(V_d) * point_mask[None, None, :]
     Y = [
         sum(W[k] * V_inv[k, j][None, None] for k in range(3))

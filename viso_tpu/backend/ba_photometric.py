@@ -10,17 +10,17 @@ template sampled from its anchor keyframe, and every observing camera
 contributes a 16-dim residual of current-image intensities at the
 landmark's projection.
 
-TPU-first design (same playbook as backend/ba.py + ops/direct.py):
+Design (same playbook as backend/ba.py + ops/direct.py):
   * **Zero-gather inner loop.** One 16x16 window per (camera, landmark)
-    observation is extracted ONCE per solve (Pallas DMA tiles on TPU,
-    dynamic_slice elsewhere) around the initial projections; every LM
+    observation is extracted ONCE per solve (batched dynamic_slice)
+    around the initial projections; every LM
     iteration then evaluates the moving patch samples and their exact
     bilinear-surface gradients as separable hat-weight matmuls against
     the cached windows. Projections that drift out of their window are
     masked, not gathered.
   * **Landmark-minor layout.** All per-observation tensors keep L in the
-    lane dimension — r (C, P2, L), Jc (C, P2, 6, L), Jp as three
-    (C, P2, L) slabs — so nothing pads a tiny block dim to 128 lanes.
+    minor dimension — r (C, P2, L), Jc (C, P2, 6, L), Jp as three
+    (C, P2, L) slabs — so reductions over landmarks are contiguous.
   * **Shared Schur solve.** The damped 6/3 marginalization + reduced
     camera solve is ba.schur_solve — identical machinery, different
     residuals, exactly the reference's BlockSolver<6,3> split.
@@ -40,7 +40,7 @@ from viso_tpu.backend import robust
 from viso_tpu.backend.ba import _inv3x3, schur_solve  # noqa: F401 (_inv3x3
 # re-exported: historical import site for other modules/tests)
 from viso_tpu.geometry import camera as cam_mod
-from viso_tpu.geometry import extract_pallas, sampling, se3
+from viso_tpu.geometry import sampling, se3
 
 
 class PhotoBAProblem(NamedTuple):
@@ -121,18 +121,9 @@ def _precompute_windows(prob: PhotoBAProblem, intr, params: PhotoBAParams):
         jnp.array([W - 1.0, H - 1.0], uv0.dtype),
     )
     cam_idx = jnp.broadcast_to(jnp.arange(C)[:, None], (C, L)).reshape(-1)
-    tiles, abase = extract_pallas.extract_windows_indexed_fast(
+    tiles, base = sampling.extract_windows_indexed(
         prob.images, cam_idx, uv_safe, w0
     )
-    base = extract_pallas._centered_base((H, W), uv_safe, w0)
-    if tiles.shape[-2:] != (w0, w0):
-        # TPU DMA path returned aligned over-copies: compact to exact
-        # (w0, w0) windows with integer-coordinate (exact) hat sampling —
-        # per-iteration passes then touch w0 lanes, not 256.
-        centers = base.astype(tiles.dtype) + w0 / 2.0
-        tiles = sampling.sample_patch_grid(
-            tiles, abase, centers, half=w0 // 2
-        )
     # Frozen scale warp: anchor depth / current depth at the initial
     # state (clipped; beyond 2x the 4x4 template is the wrong content
     # anyway and the robust kernel should own it).

@@ -7,11 +7,11 @@ This is the same LM machinery as backend/ba.py restricted to SE3-only
 variables: residual of edge (i, j) with measured relative transform
 T_ij is  r = log(T_ij^-1 * T_i * T_j^-1)  in the se(3) tangent space.
 
-TPU-first: edges are fixed-capacity masked arrays; per-edge 6x(12)
+Edges are fixed-capacity masked arrays; per-edge 6x(12)
 Jacobians come from vmapped forward-mode autodiff of the residual (exact,
 no hand-derived adjoint bookkeeping to get wrong), scatter-added into the
 dense (6K x 6K) system — K is at most a few hundred keyframes, so the
-dense solve is trivial on the MXU.
+dense solve is cheap.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ edge residuals
 
 via vmapped forward-mode autodiff (exact Jacobians of the actual
 residual — no hand-derived Sim3 adjoints to get wrong). Linear solver:
-dense (7K x 7K) below ~320 nodes (trivial on the MXU), matrix-free
+dense (7K x 7K) below ~320 nodes, matrix-free
 block-Jacobi-preconditioned CG above (O(E) — a KITTI-00-scale mono run
 at 1000+ keyframes never materializes the multi-GB dense Hessian).
 

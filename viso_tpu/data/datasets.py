@@ -1,14 +1,14 @@
 """Dataset loaders: KITTI odometry, EuRoC MAV, TUM RGB-D, plain image dirs.
 
-TPU-native replacement for the reference's `FrameSequence`
+JAX replacement for the reference's `FrameSequence`
 (`/root/reference/include/frame_sequence.h:25-38` — reads
 "<location><next_id+1>.png" grayscale each tick and silently stops on a
 missing file; `rename.sh` renames arbitrary dirs to 1..N.png). Each
 loader yields grayscale float32 frames plus calibration, and ground-truth
 poses when the dataset provides them (for ATE/RPE evaluation).
 
-Decoding is host-side (cv2); the high-throughput native path is
-viso_tpu.data.native (C++ decoder + prefetch ring).
+Decoding is host-side: PNG/PGM through viso_tpu.data.native (C++ decoder,
+also behind the prefetch ring), other formats through cv2.
 """
 
 from __future__ import annotations
@@ -41,16 +41,17 @@ class Sequence:
 
 
 def _imread_gray(path):
-    # Prefer the native C++ decoder (no GIL, no OpenCV dependency);
-    # fall back to cv2 for formats it doesn't cover (JPEG etc.).
+    """(H, W) float32 grayscale, or None when the file is missing or
+    unreadable (readers skip such frames).
+
+    PNG and PGM go through the native C++ decoder only (no OpenCV on the
+    main path); other formats (JPEG etc.) need cv2.
+    """
     from viso_tpu.data import native
 
-    if native.available() and path.endswith((".png", ".pgm")):
-        img = native.decode_gray(path)
-        if img is not None:
-            return img
-        if not os.path.exists(path):
-            return None
+    if path.endswith((".png", ".pgm")):
+        native.require()
+        return native.decode_gray(path)
     import cv2
 
     img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)

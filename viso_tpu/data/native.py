@@ -6,8 +6,8 @@ consumer thread; at >=10 FPS on KITTI-size frames decode must overlap
 the accelerator step, which is what the native prefetcher provides.
 
 Builds lazily via `make -C native` on first use; `available()` reports
-whether the shared library could be built/loaded (callers fall back to
-cv2 otherwise).
+whether the shared library could be built/loaded, and `require()`
+raises with the reason (make's stderr) when it could not.
 """
 
 from __future__ import annotations
@@ -31,11 +31,21 @@ def _load():
         return _lib
     try:
         if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True,
+            # Build under a private name and rename into place: processes
+            # that build at the same time never load a half-written file.
+            tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+            build = subprocess.run(
+                ["make", "-C", os.path.abspath(_NATIVE_DIR),
+                 f"TARGET={os.path.basename(tmp)}"],
                 capture_output=True,
+                text=True,
             )
+            if build.returncode != 0:
+                raise RuntimeError(
+                    f"make -C native failed ({build.returncode}): "
+                    f"{build.stderr.strip()}"
+                )
+            os.replace(tmp, _LIB_PATH)
         lib = ctypes.CDLL(_LIB_PATH)
         lib.viso_decode_gray.restype = ctypes.c_int
         lib.viso_decode_gray.argtypes = [
@@ -63,13 +73,21 @@ def _load():
         lib.viso_prefetcher_destroy.restype = None
         lib.viso_prefetcher_destroy.argtypes = [ctypes.c_void_p]
         _lib = lib
-    except Exception as e:  # noqa: BLE001 — record and fall back
+    except (OSError, RuntimeError, AttributeError) as e:
         _load_error = str(e)
     return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def require():
+    """The loaded library; raises with the build/load error otherwise."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable: {_load_error}")
+    return lib
 
 
 MAX_PIXELS = 4096 * 3072
@@ -99,9 +117,7 @@ class Prefetcher:
     """In-order multi-threaded decode-ahead over a list of image paths."""
 
     def __init__(self, paths, ring: int = 8, threads: int = 2):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError(f"native library unavailable: {_load_error}")
+        lib = require()
         self._lib = lib
         blob = b"".join(p.encode() + b"\0" for p in paths) + b"\0"
         self._handle = lib.viso_prefetcher_create(

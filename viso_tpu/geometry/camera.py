@@ -1,6 +1,6 @@
 """Pinhole camera model with pyramid-level scaling.
 
-TPU-native replacement for the reference's `Keyframe::Project`
+JAX replacement for the reference's `Keyframe::Project`
 (`/root/reference/include/keyframe.h:82-89` — pinhole projection with
 per-level intrinsic scaling by 0.5**level), `IsInside`
 (`keyframe.h:71-80`), and `ViewingAngle` (`keyframe.h:93-98`).

@@ -1,6 +1,6 @@
 """Two-view epipolar geometry: essential matrix, homography, decompositions.
 
-TPU-native replacement for the reference's OpenCV calls in
+JAX replacement for the reference's OpenCV calls in
 `PoseEstimation2d2d` (`/root/reference/src/viso.cpp:178-256`):
 `cv::findEssentialMat` -> batched 8-point solver (vmapped over RANSAC
 minimal sets, see ops/ransac.py), `cv::recoverPose` -> `decompose_essential`
@@ -10,7 +10,7 @@ and `RecoverPoseHomography` (viso.cpp:147-175).
 
 All solvers take *normalized* image coordinates (K^-1 applied,
 viso.cpp:46-48) and use eigh-of-normal-matrix null spaces, which batch
-onto the TPU far better than per-sample SVDs.
+better than per-sample SVDs.
 """
 
 from __future__ import annotations

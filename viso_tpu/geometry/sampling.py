@@ -1,6 +1,6 @@
 """Batched bilinear image sampling and gradients.
 
-TPU-native replacement for the reference's scalar samplers
+Batched replacement for the reference's scalar samplers
 (`/root/reference/include/common.h:35-59` — `GetPixelValue` bilinear
 interpolation and `GetImageGradient{,X,Y}` central differences, duplicated
 as `Keyframe` methods at `include/keyframe.h:50-64`).
@@ -10,9 +10,9 @@ coordinates (..., 2) in (u=x=col, v=y=row) order, matching the reference.
 Out-of-bounds coordinates are clamped (the reference clamps too,
 common.h:37-38); callers combine with `camera.is_inside` masks.
 
-All functions are gather-based and `vmap`-free by construction: they accept
-arbitrary batch shapes of coordinates directly, so XLA sees one big gather
-(which maps far better onto the TPU memory system than many small ones).
+The point samplers are gather-based and `vmap`-free by construction: they
+accept arbitrary batch shapes of coordinates directly, so XLA sees one big
+gather rather than many small ones.
 """
 
 from __future__ import annotations
@@ -60,9 +60,8 @@ def bilinear_with_grad(img, uv):
         dI/du = (1-fy)(v01 - v00) + fy(v11 - v10)
         dI/dv = (1-fx)(v10 - v00) + fx(v11 - v01)
     Central differences (the reference's estimator, common.h:44-59) cost
-    4 extra bilinear evaluations = 16 extra gathers per sample; gathers
-    are the TPU front-end's bottleneck, so this 4-gather fused form is
-    the one hot paths must use.
+    4 extra bilinear evaluations = 16 extra gathers per sample, so this
+    4-gather fused form is the one hot paths must use.
     """
     u = uv[..., 0]
     v = uv[..., 1]
@@ -121,17 +120,13 @@ def bilinear_indexed_with_grad(imgs, k, uv):
 
 
 # ---------------------------------------------------------------------------
-# Windowed sampling: the TPU fast path.
+# Windowed sampling.
 #
-# TPUs have no fast random-gather unit — XLA element gathers run at
-# ~1e8 elements/s, which caps a gather-based GN loop at ~1 fps. The fix:
-# (1) extract one contiguous window per feature with a *batched
+# (1) Extract one contiguous window per feature with a *batched
 #     dynamic_slice* (N block copies instead of N*P*P*4 element gathers),
 # (2) inside iteration loops, evaluate bilinear samples as SEPARABLE
-#     hat-function weight matmuls against the cached windows — pure
-#     VPU/MXU arithmetic, zero gathers.
-# Measured on v5e: 16 GN iterations over 2048 8x8 patches drop from
-# 65 ms (gathers) to 4 ms (windows), bit-identical to 5e-5.
+#     hat-function weight matmuls against the cached windows — dense
+#     arithmetic, zero gathers.
 # ---------------------------------------------------------------------------
 
 
@@ -139,7 +134,8 @@ def extract_windows(img, centers, win: int):
     """Per-feature square windows via batched dynamic_slice.
 
     img (H, W); centers (N, 2) float. Returns (windows (N, win, win),
-    base (N, 2) int32 window origins as (x0, y0)).
+    base (N, 2) int32 window origins as (x0, y0)). The slices carry the
+    `extract_windows` name scope in profiler traces.
     """
     H, W = img.shape
     base = jnp.floor(centers).astype(jnp.int32) - win // 2
@@ -150,7 +146,8 @@ def extract_windows(img, centers, win: int):
     def one(b):
         return jax.lax.dynamic_slice(img, (b[1], b[0]), (win, win))
 
-    return jax.vmap(one)(base), base
+    with jax.named_scope("extract_windows"):
+        return jax.vmap(one)(base), base
 
 
 def extract_windows_indexed(imgs, k, centers, win: int):
@@ -165,7 +162,8 @@ def extract_windows_indexed(imgs, k, centers, win: int):
     def one(ki, b):
         return jax.lax.dynamic_slice(imgs, (ki, b[1], b[0]), (1, win, win))[0]
 
-    return jax.vmap(one)(k, base), base
+    with jax.named_scope("extract_windows"):
+        return jax.vmap(one)(k, base), base
 
 
 def _hat_weights(coords, win: int):
@@ -233,8 +231,7 @@ def _axis_coords(windows, base, centers, half):
 
     Returns (us (N, P), vs (N, P)) clamped to the window, P = 2*half —
     identical per-axis clamping to `sample_windows` on the same grid.
-    Windows may be rectangular (rows != cols), e.g. the 8-row-aligned
-    over-copies produced by the Pallas DMA extractor.
+    Windows may be rectangular (rows != cols).
     """
     rows, win = windows.shape[-2], windows.shape[-1]
     r = jnp.arange(-half, half, dtype=centers.dtype)
@@ -250,9 +247,7 @@ def sample_patch_grid(windows, base, centers, half: int):
     but exploits that the grid is axis-aligned: every patch row shares v
     and every column shares u, so the hat-weight operands are (N, P, win)
     instead of (N, P*P, win) — 2*half-fold less weight traffic, and the
-    two 1-D passes are clean batched matmuls. This matters on TPU because
-    the win-sized lane dimension pads to 128: the flattened form moves
-    ~8x more HBM bytes than arithmetic requires.
+    two 1-D passes are clean batched matmuls.
 
     windows (N, win, win); base (N, 2); centers (N, 2) absolute image
     coords. Returns (N, P, P), rows indexed by v, columns by u.
@@ -268,9 +263,8 @@ def sample_patch_grid(windows, base, centers, half: int):
 def sample_patch_grid_with_grad(windows, base, centers, half: int):
     """Separable patch samples plus exact bilinear-surface gradients.
 
-    Returns (vals (N, P, P), gx (N, P, P), gy (N, P, P)). Gradients are
-    returned as separate planes rather than a stacked (..., 2) — a
-    trailing dim of 2 pads to a 128-lane tile on TPU (64x waste)."""
+    Returns (vals (N, P, P), gx (N, P, P), gy (N, P, P)); gradients come
+    as separate planes rather than a stacked (..., 2)."""
     us, vs = _axis_coords(windows, base, centers, half)
     rows, win = windows.shape[-2], windows.shape[-1]
     Wu = _hat_weights(us, win)

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group operations, batched and jit-friendly.
 
-TPU-native replacement for the Sophus usage in the reference
+JAX replacement for the Sophus usage in the reference
 (`/root/reference/src/viso.cpp:114,737`, `include/common.h:10-33`):
 ``Hat`` (common.h:26-33), ``MakeSE3`` (common.h:10-17), and the
 ``SE3d::exp(update) * T`` left-multiplicative updates used by the

@@ -1,6 +1,6 @@
 """Batched two-view triangulation.
 
-TPU-native replacement for the reference's Hartley-Sturm style DLT
+JAX replacement for the reference's Hartley-Sturm style DLT
 (`/root/reference/src/viso.cpp:393-431` — a 4x4 homogeneous system per
 point solved by `JacobiSVD`). A per-point 4x4 SVD batches poorly and,
 in float32, the squared conditioning of the homogeneous system costs
@@ -10,8 +10,8 @@ real accuracy. We instead solve the two-ray depth system directly:
 
 which is a 3-equation / 2-unknown least-squares problem with a closed
 form 2x2 solution — exact on noise-free data, well-conditioned, no
-decomposition at all, and it maps onto the VPU as a handful of fused
-elementwise ops. The returned point is the midpoint of the two rays'
+decomposition at all, and it is a handful of fused elementwise ops.
+The returned point is the midpoint of the two rays'
 closest approach (the classic midpoint triangulator).
 """
 

@@ -1,6 +1,6 @@
 """Fixed-capacity structure-of-arrays map (keyframes + landmarks + obs).
 
-TPU-native replacement for the reference's pointer-based map
+JAX replacement for the reference's pointer-based map
 (`/root/reference/include/map.h` — std::vectors of heap Keyframe/MapPoint
 objects, `include/map_point.h` — per-point observation lists). XLA needs
 static shapes, so:

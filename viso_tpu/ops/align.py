@@ -1,6 +1,6 @@
 """Map-to-frame feature alignment (LK refinement against keyframes).
 
-TPU-native replacement for the reference's `LKAlignment` /
+Batched replacement for the reference's `LKAlignment` /
 `LKAlignmentSingle` (`/root/reference/src/viso.cpp:768-925`): for every
 visible map point, pick the keyframe with the best viewing angle as the
 photometric reference (viso.cpp:782-806), then run coarse-to-fine 2-DoF
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from viso_tpu.geometry import camera as cam_mod
-from viso_tpu.geometry import extract_pallas, sampling, se3
+from viso_tpu.geometry import sampling
 
 
 class AlignParams(NamedTuple):
@@ -35,7 +35,7 @@ class AlignParams(NamedTuple):
     # Finest pyramid levels to run. The warm start comes from direct
     # tracking and max_shift gates the result at +-4 px, so coarse levels
     # (which exist to absorb large displacements) are dead weight; each
-    # level costs the same on TPU (fixed N and window size).
+    # level costs the same (fixed N and window size).
     levels: int = 2
 
 
@@ -70,13 +70,13 @@ def _align_level(imgs_ref, k_idx, uv_ref, img_cur, flow0, params: AlignParams):
     # Alignment shifts are gated at max_shift (~4 px): +-4 margin suffices.
     win = min(2 * half + 8, imgs_ref.shape[1], imgs_ref.shape[2], *img_cur.shape)
     # Template (from each pair's reference keyframe) and current-frame
-    # windows in ONE indexed DMA launch: the current image rides as one
+    # windows in ONE indexed extraction: the current image rides as one
     # more entry of the stacked image set. Separable axis-aligned
     # sampling against the cached windows keeps the GN loop gather-free.
     n = uv_ref.shape[0]
     K = imgs_ref.shape[0]
     imgs_all = jnp.concatenate([imgs_ref, img_cur[None]], axis=0)
-    win2, base2 = extract_pallas.extract_windows_indexed_fast(
+    win2, base2 = sampling.extract_windows_indexed(
         imgs_all,
         jnp.concatenate([k_idx.astype(jnp.int32), jnp.full(n, K, jnp.int32)]),
         jnp.concatenate([uv_ref, uv_ref + flow0]),
@@ -94,8 +94,7 @@ def _align_level(imgs_ref, k_idx, uv_ref, img_cur, flow0, params: AlignParams):
     # intact. Measured on the exposure-drift orbit bench: plain I - T
     # alignment was the dominant ATE term (4x clean).
     T = T - jnp.mean(T, axis=(-1, -2), keepdims=True)
-    # 2x2 normal matrix per pair, kept as scalar planes (a stacked
-    # (N, 2, 2) pads its unit lanes to 128 on TPU).
+    # 2x2 normal matrix per pair, kept as scalar planes.
     H00 = jnp.sum(gx * gx, axis=(-1, -2))
     H01 = jnp.sum(gx * gy, axis=(-1, -2))
     H11 = jnp.sum(gy * gy, axis=(-1, -2))

@@ -1,6 +1,6 @@
 """Sparse direct (photometric) pose estimation.
 
-TPU-native replacement for the reference's direct tracker
+Batched replacement for the reference's direct tracker
 (`/root/reference/src/viso.cpp:640-766`): multi-level (coarse->fine,
 viso.cpp:760-766) Gauss-Newton on SE3 with 8x8-patch photometric
 residuals, the analytic 2x6 pixel-wrt-twist Jacobian `dPixeldXi`
@@ -8,9 +8,9 @@ residuals, the analytic 2x6 pixel-wrt-twist Jacobian `dPixeldXi`
 (viso.cpp:722-731), left-multiplicative SE3 exp updates (viso.cpp:737),
 and NaN/cost-increase rollback to the best pose (viso.cpp:741-749).
 
-Redesign for TPU: all N map points' patches are processed per GN
-iteration as one batch; the 6x6 normal equations are accumulated with a
-single (N*P*P, 6)^T x (N*P*P, 6) matmul which lands on the MXU, and the
+Redesign: all N map points' patches are processed per GN iteration as
+one batch; the 6x6 normal equations are accumulated with a single
+(N*P*P, 6)^T x (N*P*P, 6) matmul, and the
 data-dependent early stop becomes branchless best-cost rollback.
 A Huber robust weight (not in the reference) is included because it
 costs one elementwise pass and materially improves robustness.
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from viso_tpu.geometry import camera as cam_mod
-from viso_tpu.geometry import extract_pallas, sampling, se3
+from viso_tpu.geometry import sampling, se3
 
 
 class DirectParams(NamedTuple):
@@ -128,9 +128,7 @@ def build_level_template(img_ref, points_w, point_mask, R_ref, t_ref,
     ) & point_mask
     n_points = points_w.shape[0]
     win = min(2 * half + 2, *img_ref.shape)
-    ref_win, ref_base = extract_pallas.extract_windows_fast(
-        img_ref, uv_ref, win
-    )
+    ref_win, ref_base = sampling.extract_windows(img_ref, uv_ref, win)
     T, gx, gy = sampling.sample_patch_grid_with_grad(
         ref_win, ref_base, uv_ref, half
     )
@@ -148,9 +146,8 @@ def _level_pass_cached(img_cur, tmpl: LevelTemplate, points_w,
     """One pyramid level of direct GN against a frozen template.
 
     Each GN iteration costs only zero-gather bilinear samples of the
-    cached current-image windows plus MXU einsums — gathers/DMAs are the
-    TPU bottleneck, so the per-iteration copy count is the frame-rate
-    lever. Returns (R, t, cost).
+    cached current-image windows plus batched einsums; the windows are
+    extracted once per level. Returns (R, t, cost).
     """
     half = params.half_patch
     H_img, W_img = img_cur.shape
@@ -164,21 +161,14 @@ def _level_pass_cached(img_cur, tmpl: LevelTemplate, points_w,
 
     p0 = se3.transform(R0, t0, points_w)
     uv0, _ = cam_mod.project(p0, intr_l)
-    cur_win, cur_base = extract_pallas.extract_windows_fast(
-        img_cur, uv0, win
-    )
+    cur_win, cur_base = sampling.extract_windows(img_cur, uv0, win)
     T, J6, ref_ok = tmpl.T, tmpl.J6, tmpl.ok
-    # Window extent per axis (rectangular on the TPU DMA path).
-    win_uv = jnp.asarray(
-        [cur_win.shape[-1], cur_win.shape[-2]], img_cur.dtype
-    )
 
     # Upper scale clip derived from the cached window footprint: the
     # in_win gate below needs ext = half*scale + 1 <= half + margin - 1,
     # i.e. scale <= (half + margin - 2) / half. A fixed 2.0 clip with
-    # margin=4 made the gate unsatisfiable for near points on the exact-
-    # window path (scale > 1.5 silently dropped), while the TPU DMA
-    # tile's over-copy tolerated it — backend-dependent accuracy.
+    # margin=4 made the gate unsatisfiable for near points (scale > 1.5
+    # silently dropped).
     scale_hi = min(2.0, (half + margin - 2) / half)
 
     def compute_b(R, t):
@@ -197,7 +187,7 @@ def _level_pass_cached(img_cur, tmpl: LevelTemplate, points_w,
         # center whose (scaled) patch leaves the window as invalid.
         in_win = jnp.all(
             (uv_cur - cur_base >= ext)
-            & (uv_cur - cur_base <= win_uv - ext - 1.0),
+            & (uv_cur - cur_base <= win - ext - 1.0),
             axis=-1,
         )
         cur_ok = (
@@ -232,7 +222,7 @@ def _level_pass_cached(img_cur, tmpl: LevelTemplate, points_w,
         rf = r.reshape(n_points * patch_px)
         wf = w.reshape(n_points * patch_px)
         J6w = J6 * wf[None]                                  # (6, M)
-        H = J6w @ J6.T                                       # (6,6) on MXU
+        H = J6w @ J6.T                                       # (6,6)
         b = -(J6w @ rf)                                      # (6,)
         # A pose that pushes (almost) every point out of view must read
         # as terrible, not perfect: an unguarded masked mean returns 0

@@ -1,10 +1,10 @@
-"""FAST corner detection, fully vectorized for TPU.
+"""FAST corner detection, fully vectorized.
 
-TPU-native replacement for `cv::FAST` used by the reference's init
+JAX replacement for `cv::FAST` used by the reference's init
 re-seeding (`/root/reference/src/viso.cpp:100-108`, threshold 50,
 `include/viso.h:21` fast_thresh). Instead of a per-pixel scalar test we
 evaluate the segment test densely on the whole image with 16 shifted
-copies (VPU elementwise ops), score every pixel, 3x3 non-max suppress
+copies (elementwise ops), score every pixel, 3x3 non-max suppress
 with a reduce_window, and extract a *fixed-size* keypoint set with
 `top_k` + validity mask — static shapes for everything downstream.
 
@@ -47,7 +47,7 @@ def _shifted_stack(img):
     """(16, H, W) copies of img shifted so index i holds circle-pixel i.
 
     Built from static slices of a zero-padded image (not jnp.roll: rolls
-    materialize full-size shuffled copies on TPU; padded slices fuse).
+    materialize full-size shuffled copies; padded slices fuse).
     """
     H, W = img.shape
     padded = jnp.pad(img, 3)

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow, batched over keypoints.
 
-TPU-native replacement for the reference's hand-written tracker
+Batched replacement for the reference's hand-written tracker
 (`/root/reference/src/viso.cpp:259-391`): per-keypoint Gauss-Newton on an
 8x8 patch (half_patch_size=4, viso.h:25), inverse-compositional Jacobian
 (viso.cpp:297-303), 10 iterations (viso.cpp:266), coarse-to-fine over 4
@@ -8,9 +8,9 @@ pyramid levels with the estimate upsampled between levels
 (viso.cpp:353-391), and a photometric-error success gate
 (viso.cpp:332-336, photometric_error_thresh viso.h:26).
 
-Redesign for TPU: the per-keypoint loop becomes one batched computation —
-every iteration samples all N keypoints' patches with a single fused
-gather, solves all 2x2 systems in closed form on the VPU, and applies
+Redesign: the per-keypoint loop becomes one batched computation —
+every iteration samples all N keypoints' patches from cached windows,
+solves all 2x2 systems in closed form elementwise, and applies
 masked updates. Early termination ("cost increased -> stop",
 viso.cpp:323-325) becomes best-cost rollback, which is branchless and
 strictly no worse. Inverse-compositional mode hoists the template
@@ -25,7 +25,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from viso_tpu.geometry import extract_pallas, sampling
+from viso_tpu.geometry import sampling
 from viso_tpu.ops import pyramid as pyr_mod
 
 
@@ -59,10 +59,10 @@ def _single_level(img_ref, img_cur, kp_ref, flow0, params: LKParams):
     half = params.half_patch
     win = min(4 * half + 8, *img_ref.shape)
     # Template (ref image) and warm-start (cur image) windows in ONE
-    # indexed DMA launch; the GN loop then samples from the cached
-    # windows with zero gathers (sampling.py fast path).
+    # indexed extraction; the GN loop then samples from the cached
+    # windows with zero gathers.
     n = kp_ref.shape[0]
-    win2, base2 = extract_pallas.extract_windows_indexed_fast(
+    win2, base2 = sampling.extract_windows_indexed(
         jnp.stack([img_ref, img_cur]),
         jnp.concatenate([jnp.zeros(n, jnp.int32), jnp.ones(n, jnp.int32)]),
         jnp.concatenate([kp_ref, kp_ref + flow0]),

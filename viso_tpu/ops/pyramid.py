@@ -1,13 +1,12 @@
 """On-device image pyramid construction.
 
-TPU-native replacement for the reference's `cv::pyrDown` pyramid built in
+JAX replacement for the reference's `cv::pyrDown` pyramid built in
 the `Keyframe` ctor (`/root/reference/include/keyframe.h:20-22,38-45` —
 4 levels at scale 0.5). `cv::pyrDown` is a 5x5 Gaussian blur followed by
 2x subsampling; we implement the same [1 4 6 4 1]/16 separable kernel as
 shift-and-add slices (5 scaled adds per axis) with edge replication at
-the borders — on TPU this lowers to pure VPU elementwise work and is
-~3x faster than the equivalent conv_general_dilated (tiny-channel convs
-hit a pathological layout path in the conv emitter).
+the borders — pure elementwise work that XLA fuses, where a
+single-channel conv_general_dilated would go through the conv emitter.
 
 Pyramids are tuples of (H/2^l, W/2^l) float32 arrays — a static pytree,
 so downstream jits trace once per image geometry.

@@ -1,13 +1,13 @@
 """Vectorized RANSAC: all hypotheses evaluated in one batched pass.
 
-TPU-native replacement for the OpenCV RANSAC loops the reference calls
+JAX replacement for the OpenCV RANSAC loops the reference calls
 (`cv::findEssentialMat` / `cv::findHomography`,
 `/root/reference/src/viso.cpp:220-252`). Sequential hypothesize-and-
 verify with data-dependent early exit is hostile to XLA; instead we draw
 a *fixed* budget of S minimal samples up front, fit all S models with a
 vmapped solver, score all S x N residuals as one matmul-shaped pass, and
 argmax masked inlier counts. With S ~ hundreds this dominates the
-adaptive-termination sequential loop in wall-clock on TPU and has fully
+adaptive-termination sequential loop in wall-clock and has fully
 static shapes.
 """
 
@@ -85,7 +85,7 @@ def essential_ransac(
     Minimal 8-point fits amplify pixel noise badly in the small-baseline
     regime, so a single best-count hypothesis can sit in a wrong basin
     (observed: 73 deg translation-direction error while covering 30% of
-    inliers). The TPU remedy is parallel breadth: thousands of vmapped
+    inliers). The remedy is parallel breadth: thousands of vmapped
     hypotheses, MSAC scoring, then vmapped LM refinement on the essential
     manifold (graduated non-convexity on the robust Sampson cost) from
     the `top_k` hypotheses, keeping the best final robust cost.

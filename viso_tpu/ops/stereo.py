@@ -1,7 +1,7 @@
 """Stereo matching along rectified epipolar lines.
 
 The reference is monocular-only; stereo VO (BASELINE.json config 2)
-needs per-feature disparity. TPU-native design: for N keypoints and D
+needs per-feature disparity. Batched design: for N keypoints and D
 candidate disparities, sample all (N, D) patch SSDs in one fused gather
 batch (no per-feature loops), argmin over D, then sub-pixel refine with
 a parabola fit on the SSD curve — everything static-shape.
@@ -15,7 +15,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from viso_tpu.geometry import extract_pallas, sampling
+from viso_tpu.geometry import sampling
 
 
 class StereoParams(NamedTuple):
@@ -26,6 +26,15 @@ class StereoParams(NamedTuple):
     min_disparity: float = 0.25   # sub-pixel disparities below are unusable
 
 
+def scanline_strips(img, bx, by, h: int, w: int):
+    """(N, h, w) windows of img at in-bounds origins (bx, by) (N,):
+    one batched dynamic_slice, named `extract_windows` in traces."""
+    with jax.named_scope("extract_windows"):
+        return jax.vmap(
+            lambda x0, y0: jax.lax.dynamic_slice(img, (y0, x0), (h, w))
+        )(bx, by)
+
+
 @partial(jax.jit, static_argnames=("params",))
 def match(img_left, img_right, kp_left, mask, params: StereoParams = StereoParams()):
     """Match left-image keypoints into the right image (rectified pair).
@@ -34,21 +43,18 @@ def match(img_left, img_right, kp_left, mask, params: StereoParams = StereoParam
     Returns (disparity (N,), cost (N,), ok (N,)).
     Depth follows as  z = f * baseline / disparity.
 
-    TPU fast path: one scanline window of width D+P per keypoint
-    (batched dynamic_slice), resampled once onto the keypoint's
-    fractional grid with separable hat-weight matmuls; every disparity's
-    patch is then a *static* slice of the resampled strip — zero gathers
-    in the search (the naive (N, D, P, P) gather formulation runs ~10x
-    slower on v5e).
+    One scanline window of width D+P per keypoint (batched
+    dynamic_slice), resampled once onto the keypoint's fractional grid
+    with separable hat-weight matmuls; every disparity's patch is then a
+    *static* slice of the resampled strip — zero gathers in the search
+    (the naive formulation gathers (N, D, P, P) samples).
     """
     half = params.half_patch
     P = 2 * half
     D = params.max_disparity
     H, W = img_left.shape
     N = kp_left.shape[0]
-    lwin, lbase = extract_pallas.extract_windows_fast(
-        img_left, kp_left, min(P + 4, H, W)
-    )
+    lwin, lbase = sampling.extract_windows(img_left, kp_left, min(P + 4, H, W))
     tmpl = sampling.sample_patch_grid(lwin, lbase, kp_left, half)      # (N,P,P)
 
     # Right scanline strip covering disparities 0..D-1.
@@ -59,11 +65,7 @@ def match(img_left, img_right, kp_left, mask, params: StereoParams = StereoParam
     bx = jnp.clip(jnp.floor(u).astype(jnp.int32) - (D - 1) - half - 1, 0, W - WW)
     by = jnp.clip(jnp.floor(v).astype(jnp.int32) - half - 2, 0, H - WH)
 
-    rwin, rbase = extract_pallas.extract_rects_fast(
-        img_right, jnp.stack([bx, by], axis=-1), WH, WW
-    )                                                                   # (N,RH,RW)
-    RH, RW = rwin.shape[-2], rwin.shape[-1]
-    bx, by = rbase[:, 0], rbase[:, 1]
+    rwin = scanline_strips(img_right, bx, by, WH, WW)      # (N,WH,WW)
     # Resample the strip once onto the keypoint's fractional grid:
     # rows v-half..v+half-1, cols u-(D-1)-half..u+half-1.
     S = D + P - 1
@@ -71,8 +73,8 @@ def match(img_left, img_right, kp_left, mask, params: StereoParams = StereoParam
     cols = (
         u[:, None] - (D - 1) - half + jnp.arange(S, dtype=u.dtype)[None]
     )                                                                   # (N,S)
-    Wy = sampling._hat_weights(rows - by[:, None].astype(v.dtype), RH)  # (N,P,RH)
-    Wx = sampling._hat_weights(cols - bx[:, None].astype(u.dtype), RW)  # (N,S,RW)
+    Wy = sampling._hat_weights(rows - by[:, None].astype(v.dtype), WH)  # N,P,WH
+    Wx = sampling._hat_weights(cols - bx[:, None].astype(u.dtype), WW)  # N,S,WW
     strip = jnp.einsum("npy,nyx,nsx->nps", Wy, rwin, Wx)                # (N,P,S)
     # SSD for disparity d = mean over the patch of (strip slice - tmpl)^2;
     # the slice start is D-1-d (all static slices).
@@ -84,12 +86,9 @@ def match(img_left, img_right, kp_left, mask, params: StereoParams = StereoParam
     win_sq = csum[:, P:] - csum[:, :-P]                                 # (N,D) at start s
     # Cross-correlation term WITHOUT materializing a (N, D, P, P)
     # candidate stack: cross[n, s] = sum_q sum_p strip[n,p,s+q] T[n,p,q]
-    # = sum_q B[n, q, s+q] with B = einsum over p. The stacked form
-    # dominated the whole keyframe-insert kernel (~9 ms of its 9.4 ms
-    # on v5e): each of the 128 (N,1,P,P) slices pads its minor dim
-    # 8 -> 128 lanes (16x memory) and is written then re-read. This
-    # form is the identical arithmetic at ~60x less compute and none
-    # of the padded traffic.
+    # = sum_q B[n, q, s+q] with B = einsum over p: the identical
+    # arithmetic at ~60x less compute than stacking D (N, P, P) slices,
+    # and nothing written then re-read.
     B = jnp.einsum("nps,npq->nqs", strip, tmpl)                         # (N,P,S)
     cross = sum(B[:, q, q : q + D] for q in range(P))                   # (N,D)
     t_sq = jnp.sum(tmpl * tmpl, axis=(-1, -2))

@@ -1,6 +1,6 @@
 """Two-view initialization: motion hypotheses, selection, scale fixing.
 
-TPU-native replacement for the reference's `PoseEstimation2d2d` +
+JAX replacement for the reference's `PoseEstimation2d2d` +
 `SelectMotion` (`/root/reference/src/viso.cpp:178-256, 520-638`):
 disparity gate (viso.cpp:197-218), essential + homography hypothesis
 generation, per-candidate triangulation with depth / parallax /

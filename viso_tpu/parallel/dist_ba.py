@@ -5,14 +5,14 @@ SURVEY.md §2 "Parallelism: NONE"); this implements the north-star
 distributed BA design: keyframe (camera) blocks replicated, landmark
 blocks and their Schur marginalization shard-local, and only the reduced
 camera system — (6C)^2 + 6C floats per LM iteration — crossing the
-interconnect via `psum` (ICI on a pod slice).
+interconnect via `psum`.
 
 Communication analysis: for C = 16 window cameras the reduced system is
 ~37 KB/iteration regardless of landmark count, so scaling efficiency is
 bounded by compute balance, not bandwidth — the landmark dimension is
 padded to a multiple of the mesh size and split evenly.
 `psum_bytes_per_iter` makes this analysis a first-class, benchmarkable
-quantity (tools/bench_dist_ba.py records it next to measured iters/s).
+quantity.
 """
 
 from __future__ import annotations
@@ -64,11 +64,6 @@ def psum_bytes_per_iter(num_cams: int, dtype_bytes: int = 4) -> int:
         + 2           # accept-test compute_cost: cost + n_obs
     )
     return per_iter * dtype_bytes
-
-
-# Collectives launched per LM iteration (latency term of the scaling
-# model): the fused normal-equation psum + the accept-test scalar psum.
-PSUMS_PER_ITER = 2
 
 
 @functools.lru_cache(maxsize=32)

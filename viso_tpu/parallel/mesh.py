@@ -1,10 +1,10 @@
 """Device-mesh helpers for multi-chip execution.
 
 The reference is single-threaded CPU (SURVEY.md §2: no parallel or
-distributed machinery anywhere); all distribution here is new, designed
-for TPU pod slices: a 1-D `landmark` mesh axis shards the bundle-
-adjustment landmark/observation dimension, with camera blocks replicated
-and reduced over ICI collectives (`psum`) inside `shard_map`.
+distributed machinery anywhere); all distribution here is new: a 1-D
+`landmark` mesh axis shards the bundle-adjustment landmark/observation
+dimension, with camera blocks replicated and reduced with collectives
+(`psum`) inside `shard_map`.
 """
 
 from __future__ import annotations

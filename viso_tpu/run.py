@@ -140,8 +140,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from viso_tpu.data import datasets, synthetic
-    from viso_tpu.utils import checkpoint, logging as vlog, metrics, viz
+    from viso_tpu.utils import checkpoint, compile_cache, logging as vlog
+    from viso_tpu.utils import metrics, viz
 
+    compile_cache.enable()
     os.makedirs(args.out_dir, exist_ok=True)
 
     if args.dataset == "kitti":
@@ -285,12 +287,10 @@ def main(argv=None):
         viz.plot_trajectory(
             R_est, t_est, gt_R, gt_t,
             path=os.path.join(args.out_dir, "trajectory.png"),
-            title=f"{seq.name} ATE={summary['ate_rmse_m']:.3f} m",
         )
     else:
         viz.plot_trajectory(
             R_est, t_est, path=os.path.join(args.out_dir, "trajectory.png"),
-            title=seq.name,
         )
 
     # Final top-down map render (the reference's Pangolin DrawMap view,

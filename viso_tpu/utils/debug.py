@@ -2,7 +2,7 @@
 
 The reference has no sanitizers (single-threaded C++, bare -O2,
 CMakeLists.txt:3); its runtime checks are scattered NaN bailouts
-(viso.cpp:315, 741, 896). The TPU-native equivalents:
+(viso.cpp:315, 741, 896). The equivalents here:
 
   * NaN debugging: `enable_nan_checks()` flips JAX's debug-NaN mode —
     every jitted kernel re-runs op-by-op when its output contains NaN

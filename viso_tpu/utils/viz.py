@@ -56,57 +56,79 @@ def draw_tracks(img, uv0, uv1, mask=None, color=(255, 200, 0)):
     return rgb
 
 
-def plot_trajectory(est_R, est_t, gt_R=None, gt_t=None, path=None, title=""):
-    """Top-down (x-z) trajectory plot; saves PNG if path given."""
-    import matplotlib
+def _finite_xz(xyz):
+    """(N, 3) points -> their finite (M, 2) x-z coordinates."""
+    xz = np.asarray(xyz, np.float64).reshape(-1, 3)[:, [0, 2]]
+    return xz[np.isfinite(xz).all(axis=1)]
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
 
+def _topdown_canvas(xz_sets, size=840, margin=40):
+    """White (size, size, 3) canvas and an equal-aspect (x, z) -> pixel
+    map framing every point of `xz_sets`; +z points up the image."""
+    pts = np.concatenate(xz_sets, axis=0)
+    if len(pts) == 0:
+        pts = np.zeros((1, 2))
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    center = (lo + hi) / 2.0
+    scale = (size - 2 * margin) / max(float((hi - lo).max()), 1e-6)
+
+    def to_px(xz):
+        xz = np.asarray(xz, np.float64).reshape(-1, 2)
+        return np.stack(
+            [size / 2 + (xz[:, 0] - center[0]) * scale,
+             size / 2 - (xz[:, 1] - center[1]) * scale], axis=-1,
+        )
+
+    return np.full((size, size, 3), 255, np.uint8), to_px
+
+
+def _save(rgb, path):
+    if not path:
+        return rgb
+    from viso_tpu.data import png_io
+
+    png_io.write_rgb_png(path, rgb)
+    return path
+
+
+def plot_trajectory(est_R, est_t, gt_R=None, gt_t=None, path=None):
+    """Top-down (x-z) trajectory plot: estimate in blue, ground truth in
+    black. Writes a PNG if `path` is given (returns the path), else
+    returns the RGB uint8 image."""
     from viso_tpu.utils.metrics import camera_centers
 
-    fig, ax = plt.subplots(figsize=(7, 7))
-    c = camera_centers(np.asarray(est_R), np.asarray(est_t))
-    ax.plot(c[:, 0], c[:, 2], "b-", lw=1.2, label="estimate")
+    est = _finite_xz(camera_centers(np.asarray(est_R), np.asarray(est_t)))
+    gt = None
     if gt_R is not None:
-        g = camera_centers(np.asarray(gt_R), np.asarray(gt_t))
-        ax.plot(g[:, 0], g[:, 2], "k--", lw=1.0, label="ground truth")
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("z [m]")
-    ax.axis("equal")
-    ax.legend()
-    ax.set_title(title)
-    if path:
-        fig.savefig(path, dpi=120, bbox_inches="tight")
-        plt.close(fig)
-        return path
-    return fig
+        gt = _finite_xz(camera_centers(np.asarray(gt_R), np.asarray(gt_t)))
+    rgb, to_px = _topdown_canvas([est] + ([gt] if gt is not None else []))
+    if gt is not None:
+        uv = to_px(gt)
+        rgb = draw_tracks(rgb, uv[:-1], uv[1:], color=(0, 0, 0))
+    uv = to_px(est)
+    rgb = draw_tracks(rgb, uv[:-1], uv[1:], color=(30, 90, 230))
+    return _save(rgb, path)
 
 
 def plot_map_topdown(points, point_mask, kf_R=None, kf_t=None, path=None):
-    """Top-down map scatter + camera frusta markers (main.cpp:56-103)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """Top-down map: landmarks in gray, keyframe path and markers in blue
+    (main.cpp:56-103). Writes a PNG if `path` is given."""
     from viso_tpu.utils.metrics import camera_centers
 
-    fig, ax = plt.subplots(figsize=(7, 7))
-    p = np.asarray(points)[np.asarray(point_mask)]
-    ax.scatter(p[:, 0], p[:, 2], s=1, c="gray", label="landmarks")
+    p = _finite_xz(np.asarray(points)[np.asarray(point_mask)])
+    kf = None
     if kf_R is not None:
-        c = camera_centers(np.asarray(kf_R), np.asarray(kf_t))
-        ax.plot(c[:, 0], c[:, 2], "b^-", ms=5, label="keyframes")
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("z [m]")
-    ax.axis("equal")
-    ax.legend()
-    if path:
-        fig.savefig(path, dpi=120, bbox_inches="tight")
-        plt.close(fig)
-        return path
-    return fig
+        kf = _finite_xz(camera_centers(np.asarray(kf_R), np.asarray(kf_t)))
+    rgb, to_px = _topdown_canvas([p] + ([kf] if kf is not None else []))
+    uv = np.round(to_px(p)).astype(int)
+    H, W = rgb.shape[:2]
+    keep = (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+    rgb[uv[keep, 1], uv[keep, 0]] = (128, 128, 128)
+    if kf is not None:
+        uv = to_px(kf)
+        rgb = draw_tracks(rgb, uv[:-1], uv[1:], color=(30, 90, 230))
+        rgb = draw_keypoints(rgb, uv, color=(30, 90, 230), radius=3)
+    return _save(rgb, path)
 
 
 _VIEWER_JS = """
